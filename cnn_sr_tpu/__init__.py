@@ -1,29 +1,38 @@
-"""cnn_sr_tpu — a TPU-native (JAX/XLA/Pallas/pjit) super-resolution framework.
+"""Former import name of :mod:`cnn_sr`, kept so that existing imports
+keep working. Every submodule resolves to the ``cnn_sr`` module itself
+(one module object under two names), so ``import <old>.api`` and
+``import cnn_sr.api`` share state and compiled programs. New code
+imports ``cnn_sr``."""
 
-A from-scratch rebuild of the capabilities of the reference OpenCL/C++
-application (Scthe/cnn-Super-Resolution): an SRCNN-style convolutional
-network for single-image super-resolution on the luma (Y) channel, with
-JSON config, a bit-compatible JSON weights format, a train/forward CLI,
-and tooling for sample generation, scheduling, profiling and weight
-visualization — re-designed TPU-first:
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-- compute path: jitted XLA convolutions + fused Pallas kernels (NHWC,
-  MXU-shaped matmuls via im2col tiling) instead of per-pixel OpenCL
-  work-items;
-- gradients: ``jax.grad`` of the forward+loss (with the reference's
-  backprop quirks replicated via a custom VJP gate) instead of
-  hand-written delta/backprop kernels;
-- scaling: ``jax.sharding.Mesh`` + jit/shard_map data-parallel training
-  and halo-exchange spatial sharding, instead of the reference's
-  single-device NDRange batching.
+from cnn_sr import __version__  # noqa: F401
 
-Package layout:
-  utils/     config + parameters-file codecs, shared helpers
-  models/    the generic layer-list SRCNN model family
-  ops/       image/color ops, conv wrappers, Pallas kernels
-  optim/     the reference-exact SGD(momentum, weight-decay) update
-  parallel/  mesh construction, data-parallel + spatial sharding
-  training/  sample discovery, batching, the epoch loop
-"""
+_PREFIX = __name__ + "."
 
-__version__ = "0.1.0"
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Finds ``<old>.X`` and loads it as the already-importable
+    ``cnn_sr.X``."""
+
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(_PREFIX):
+            return None
+        return importlib.util.spec_from_loader(name, self)
+
+    def create_module(self, spec):
+        module = importlib.import_module("cnn_sr." + spec.name[len(_PREFIX):])
+        # the import system stamps the alias spec on the module; keep
+        # the real one to put back in exec_module
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        module.__spec__ = module.__spec__.loader_state
+
+
+if not any(isinstance(f, _Alias) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Alias())

@@ -1,11 +1,11 @@
-// cnnsr_native — native runtime layer for the cnn_sr_tpu framework.
+// cnnsr_native — native runtime layer for the cnn_sr framework.
 //
-// TPU-native equivalent of the reference's native host runtime: where the
+// The equivalent of the reference's native host runtime: where the
 // reference used C++ for image IO (stb via opencl/UtilsOpenCL.cpp), JSON
 // parsing (libs/cpp/gason.cpp) and host-side sample preparation
 // (Main_cl.cpp prepare_image loop), this library provides:
 //
-//   * JPEG/PNG decode to RGBA8 (libjpeg/libpng/zlib) and PNG encode
+//   * JPEG/PNG decode to RGBA8 (libjpeg/libpng/zlib) and JPEG encode
 //   * Rec.601 luma extraction + per-image mean subtraction (the
 //     extract_luma.cl / DataPipeline::subtract_mean host analog)
 //   * a pthread-pooled batch sample loader that decodes whole training
@@ -14,7 +14,7 @@
 //   * fast float-array JSON emit/parse for the parameters file
 //
 // Exposed as a plain C ABI consumed from Python via ctypes
-// (cnn_sr_tpu/native.py). All functions return 0 on success, negative
+// (cnn_sr/native.py). All functions return 0 on success, negative
 // error codes on failure.
 
 #include <cstdio>
@@ -196,30 +196,6 @@ int cnnsr_decode_rgba(const char* path, uint8_t* dst, int w, int h) {
   if (rc != 0) return rc;
   if (dw != w || dh != h) return -5;
   memcpy(dst, px.data(), px.size());
-  return 0;
-}
-
-int cnnsr_encode_png(const char* path, const uint8_t* rgb, int w, int h) {
-  FILE* f = fopen(path, "wb");
-  if (!f) return -1;
-  png_structp png = png_create_write_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  png_infop info = png ? png_create_info_struct(png) : nullptr;
-  if (!png || !info || setjmp(png_jmpbuf(png))) {
-    if (png) png_destroy_write_struct(&png, info ? &info : nullptr);
-    fclose(f);
-    return -3;
-  }
-  png_init_io(png, f);
-  png_set_IHDR(png, info, w, h, 8, PNG_COLOR_TYPE_RGB, PNG_INTERLACE_NONE,
-               PNG_COMPRESSION_TYPE_DEFAULT, PNG_FILTER_TYPE_DEFAULT);
-  png_write_info(png, info);
-  std::vector<png_bytep> rows(h);
-  for (int y = 0; y < h; y++)
-    rows[y] = const_cast<uint8_t*>(rgb) + (size_t)y * w * 3;
-  png_write_image(png, rows.data());
-  png_write_end(png, nullptr);
-  png_destroy_write_struct(&png, &info);
-  fclose(f);
   return 0;
 }
 

@@ -41,16 +41,16 @@ def main() -> None:
 
     import numpy as np
 
-    from cnn_sr_tpu.parallel.multihost import (
+    from cnn_sr.parallel.multihost import (
         initialize_multihost, shard_host_local_batch)
 
     assert initialize_multihost(f"127.0.0.1:{port}", nprocs, pid)
     assert jax.process_count() == nprocs
     assert len(jax.devices()) == 2 * nprocs  # global devices
 
-    from cnn_sr_tpu.parallel.mesh import make_mesh
-    from cnn_sr_tpu.training.trainer import init_train_state, make_train_step
-    from cnn_sr_tpu.utils.config import parse_config
+    from cnn_sr.parallel.mesh import make_mesh
+    from cnn_sr.training.trainer import init_train_state, make_train_step
+    from cnn_sr.utils.config import parse_config
 
     cfg = parse_config(CFG)
     state = init_train_state(cfg, seed=0)  # same seed -> identical everywhere

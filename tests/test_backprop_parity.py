@@ -3,7 +3,7 @@ hand-derived backprop chain (last_layer_delta.cl → layer_deltas.cl →
 backpropagate.cl), including the ReLU' gate on the linear last layer and
 raw summation over the sample axis.
 
-This is the TPU-native analog of LayerDeltasTest + BackpropagationTest
+This is the analog of LayerDeltasTest + BackpropagationTest
 (SURVEY.md §4), with the numpy oracles standing in for the reference's
 oracle scripts.
 """
@@ -14,8 +14,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cnn_sr_tpu.models import loss_sum
-from cnn_sr_tpu.models.srcnn import relu_backprop_gate
+from cnn_sr.models import loss_sum
+from cnn_sr.models.srcnn import relu_backprop_gate
 
 import oracles
 

@@ -12,12 +12,12 @@ import sys
 
 import numpy as np
 
-from cnn_sr_tpu.training.checkpoint import (
+from cnn_sr.training.checkpoint import (
     load_full_state, save_full_state, sidecar_path)
-from cnn_sr_tpu.training.samples import SampleSet
-from cnn_sr_tpu.training.trainer import init_train_state, train_loop
-from cnn_sr_tpu.utils.config import parse_config
-from cnn_sr_tpu.utils.params_io import save_parameters_file
+from cnn_sr.training.samples import SampleSet
+from cnn_sr.training.trainer import init_train_state, train_loop
+from cnn_sr.utils.config import parse_config
+from cnn_sr.utils.params_io import save_parameters_file
 
 CFG = {
     "n1": 4, "n2": 2, "f1": 3, "f2": 1, "f3": 3,
@@ -126,7 +126,7 @@ def test_cli_full_state_flag(tmp_path):
         Image.fromarray(small, "RGB").save(str(d / f"s{i}_small.png"))
     out = str(tmp_path / "p.json")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, CNN_SR_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, os.path.join(root, "cnn.py"), "train",
          "-c", str(cfg_path), "-i", str(d), "-e", "2", "-o", out,

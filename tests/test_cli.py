@@ -1,6 +1,6 @@
 """End-to-end CLI tests — forward and training through the real entry
 point (the reference's golden-image + smoke coverage, SURVEY.md §4),
-run in-process against `cnn_sr_tpu.cli.main`."""
+run in-process against `cnn_sr.cli.main`."""
 
 import json
 import os
@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from cnn_sr_tpu.cli import main
+from cnn_sr.cli import main
 
 CFG = {
     "n1": 4, "n2": 2, "f1": 3, "f2": 1, "f3": 3,
@@ -171,7 +171,7 @@ def test_cli_packed_io_flag(tmp_path):
     import numpy as np
     from PIL import Image
 
-    from cnn_sr_tpu.cli import main
+    from cnn_sr.cli import main
 
     cfg_path = tmp_path / "cfg.json"
     with open(cfg_path, "w") as fh:

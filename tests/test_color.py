@@ -6,7 +6,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from cnn_sr_tpu.ops import extract_luma, subtract_mean, swap_luma
+from cnn_sr.ops import extract_luma, subtract_mean, swap_luma
 
 import oracles
 
@@ -99,7 +99,7 @@ def test_swap_luma_identity_luma_reconstructs_image():
 # ---- byte-packed (uint32) color path: must match the rank-3 ops exactly ----
 
 def test_extract_luma_packed_bit_identical():
-    from cnn_sr_tpu.ops.color import extract_luma_packed, pack_rgba_host
+    from cnn_sr.ops.color import extract_luma_packed, pack_rgba_host
 
     img = _color_grid(11, 7, seed=9)
     packed = pack_rgba_host(img)
@@ -110,7 +110,7 @@ def test_extract_luma_packed_bit_identical():
 
 
 def test_swap_luma_packed_bit_identical():
-    from cnn_sr_tpu.ops.color import (
+    from cnn_sr.ops.color import (
         pack_rgba_host, swap_luma_packed, unpack_rgb_host)
 
     img = _color_grid(9, 12, seed=10)
@@ -126,7 +126,7 @@ def test_swap_luma_packed_bit_identical():
 
 
 def test_pack_rgba_host_roundtrip_and_3ch():
-    from cnn_sr_tpu.ops.color import pack_rgba_host, unpack_rgb_host
+    from cnn_sr.ops.color import pack_rgba_host, unpack_rgb_host
 
     img = _color_grid(4, 5, seed=11)
     np.testing.assert_array_equal(

@@ -6,7 +6,7 @@ import json
 
 import pytest
 
-from cnn_sr_tpu.utils.config import (
+from cnn_sr.utils.config import (
     Config,
     ConfigError,
     ConfigValidationError,
@@ -164,7 +164,7 @@ def test_parameters_file_config_relative_fallback(tmp_path, monkeypatch):
     import json as _json
     import os
 
-    from cnn_sr_tpu.utils.config import read_config
+    from cnn_sr.utils.config import read_config
 
     base = {
         "n1": 4, "n2": 2, "f1": 3, "f2": 1, "f3": 3,

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cnn_sr_tpu.utils.debug import dump_vector, print_array, warn_blocking_transfers
+from cnn_sr.utils.debug import dump_vector, print_array, warn_blocking_transfers
 
 
 def test_dump_vector_formats_lines():

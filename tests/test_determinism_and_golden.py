@@ -18,11 +18,11 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from cnn_sr_tpu.api import upscale_image
-from cnn_sr_tpu.models import loss_sum
-from cnn_sr_tpu.utils.config import parse_config
-from cnn_sr_tpu.utils.metrics import psnr, psnr_y
-from cnn_sr_tpu.utils.params_io import random_parameters
+from cnn_sr.api import upscale_image
+from cnn_sr.models import loss_sum
+from cnn_sr.utils.config import parse_config
+from cnn_sr.utils.metrics import psnr, psnr_y
+from cnn_sr.utils.params_io import random_parameters
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 

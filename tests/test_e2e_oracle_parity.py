@@ -13,9 +13,9 @@ is the only allowed difference).
 import numpy as np
 import pytest
 
-from cnn_sr_tpu.api import upscale_image
-from cnn_sr_tpu.utils.config import parse_config
-from cnn_sr_tpu.utils.params_io import random_parameters
+from cnn_sr.api import upscale_image
+from cnn_sr.utils.config import parse_config
+from cnn_sr.utils.params_io import random_parameters
 
 import oracles
 

@@ -9,10 +9,10 @@ optimization progress on synthetic data.
 
 import numpy as np
 
-from cnn_sr_tpu.models import luma_mse_metrics
-from cnn_sr_tpu.training.samples import SampleSet
-from cnn_sr_tpu.training.trainer import init_train_state, train_loop
-from cnn_sr_tpu.utils.config import parse_config
+from cnn_sr.models import luma_mse_metrics
+from cnn_sr.training.samples import SampleSet
+from cnn_sr.training.trainer import init_train_state, train_loop
+from cnn_sr.utils.config import parse_config
 
 CFG = {
     "n1": 8, "n2": 4, "f1": 5, "f2": 1, "f3": 3,
@@ -90,8 +90,8 @@ def test_bf16_grads_match_f32_direction():
     import jax
     import jax.numpy as jnp
 
-    from cnn_sr_tpu.models import loss_sum
-    from cnn_sr_tpu.utils.params_io import random_parameters
+    from cnn_sr.models import loss_sum
+    from cnn_sr.utils.params_io import random_parameters
 
     cfg = parse_config(CFG)
     params = [

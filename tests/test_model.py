@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from cnn_sr_tpu.models import center_crop, forward
-from cnn_sr_tpu.models.srcnn import conv_layer, forward_activations
+from cnn_sr.models import center_crop, forward
+from cnn_sr.models.srcnn import conv_layer, forward_activations
 
 import oracles
 

@@ -4,9 +4,9 @@ validation values."""
 
 import numpy as np
 
-from cnn_sr_tpu.training.samples import SampleSet
-from cnn_sr_tpu.training.trainer import init_train_state, train_loop
-from cnn_sr_tpu.utils.config import parse_config
+from cnn_sr.training.samples import SampleSet
+from cnn_sr.training.trainer import init_train_state, train_loop
+from cnn_sr.utils.config import parse_config
 
 CFG = {
     "n1": 6, "n2": 3, "f1": 3, "f2": 1, "f3": 3,

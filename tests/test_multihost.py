@@ -62,9 +62,9 @@ def test_two_process_data_parallel_step(tmp_path):
     # single-process reference on a local 4-device mesh (conftest gives 8)
     import jax
 
-    from cnn_sr_tpu.parallel.mesh import make_mesh
-    from cnn_sr_tpu.training.trainer import init_train_state, make_train_step
-    from cnn_sr_tpu.utils.config import parse_config
+    from cnn_sr.parallel.mesh import make_mesh
+    from cnn_sr.training.trainer import init_train_state, make_train_step
+    from cnn_sr.utils.config import parse_config
 
     from _multihost_worker import CFG  # same architecture/data recipe
 

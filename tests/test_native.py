@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from cnn_sr_tpu import native
+from cnn_sr import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"
@@ -43,15 +43,6 @@ def test_decode_jpeg_matches_pil_closely(tmp_path):
     assert np.abs(got - want).max() <= 2
 
 
-def test_encode_png_roundtrip(tmp_path):
-    rng = np.random.default_rng(2)
-    rgb = rng.integers(0, 256, (20, 30, 3), dtype=np.uint8)
-    p = str(tmp_path / "out.png")
-    native.encode_png(p, rgb)
-    back = np.asarray(Image.open(p).convert("RGB"))
-    np.testing.assert_array_equal(back, rgb)
-
-
 def test_encode_jpeg_roundtrip(tmp_path):
     rng = np.random.default_rng(3)
     # smooth gradient (JPEG is lossy; keep the content compressible)
@@ -66,7 +57,7 @@ def test_encode_jpeg_roundtrip(tmp_path):
     assert np.abs(back - rgb.astype(np.int32)).mean() < 6.0
 
     # write_image routes .jpg through the native encoder
-    from cnn_sr_tpu.ops.image import write_image
+    from cnn_sr.ops.image import write_image
 
     p2 = str(tmp_path / "out2.jpeg")
     write_image(p2, rgb)
@@ -123,7 +114,7 @@ def test_float_json_codec_roundtrip():
 
 def test_sample_set_native_matches_pil_path(tmp_path, monkeypatch):
     """load_sample_set via the native fast path must equal the PIL path."""
-    from cnn_sr_tpu.training import samples as S
+    from cnn_sr.training import samples as S
 
     rng = np.random.default_rng(6)
     d = tmp_path / "s"

@@ -7,7 +7,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from cnn_sr_tpu.optim import init_optimizer_state, update_parameters
+from cnn_sr.optim import init_optimizer_state, update_parameters
 
 import oracles
 

@@ -1,6 +1,6 @@
 """Multi-device tests on the virtual 8-CPU mesh: data-parallel training
 equivalence and halo-exchange spatial sharding correctness — coverage the
-single-GPU reference never had (SURVEY.md §4 'implication for TPU build')."""
+single-GPU reference never had (SURVEY.md §4)."""
 
 import numpy as np
 import pytest
@@ -8,11 +8,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cnn_sr_tpu.parallel.mesh import make_mesh
-from cnn_sr_tpu.parallel.spatial import sharded_forward
-from cnn_sr_tpu.models import forward
-from cnn_sr_tpu.training.trainer import init_train_state, make_train_step
-from cnn_sr_tpu.utils.config import parse_config
+from cnn_sr.parallel.mesh import make_mesh
+from cnn_sr.parallel.spatial import sharded_forward
+from cnn_sr.models import forward
+from cnn_sr.training.trainer import init_train_state, make_train_step
+from cnn_sr.utils.config import parse_config
 
 CFG = {
     "n1": 4, "n2": 3, "f1": 3, "f2": 1, "f3": 3,
@@ -120,8 +120,8 @@ def test_entry_compiles(devices):
 def test_scanned_dispatch_over_mesh_matches_single(devices):
     """Multi-epoch scan dispatch with a data mesh must equal the
     single-device scanned path."""
-    from cnn_sr_tpu.training.samples import SampleSet
-    from cnn_sr_tpu.training.trainer import train_loop
+    from cnn_sr.training.samples import SampleSet
+    from cnn_sr.training.trainer import train_loop
 
     cfg = parse_config(CFG)
     rng = np.random.default_rng(9)
@@ -163,11 +163,10 @@ def test_spatial_sharded_forward_rgb(devices):
     )
 
 
-def test_spatial_sharded_fused_forward(devices):
-    """Halo-exchange sharding composed with the fused Pallas path
-    (interpret mode on the CPU mesh)."""
-    from cnn_sr_tpu.ops.pallas_fused import fused_forward
-
+def test_spatial_sharded_forward_three_layer_stack(devices):
+    """``sharded_forward`` with no forward override on a 5-3-3 stack
+    (shrink 8 across 2 shards of 40 rows), against the unsharded
+    forward."""
     rng = np.random.default_rng(13)
     params = [
         {"w": jnp.asarray(rng.standard_normal((5, 5, 1, 8)).astype(np.float32) * 0.1),
@@ -179,14 +178,11 @@ def test_spatial_sharded_fused_forward(devices):
     ]
     x = jnp.asarray(rng.standard_normal((1, 80, 150, 1)).astype(np.float32))
     mesh = make_mesh(n_data=1, n_spatial=2, devices=devices)
-    y_sharded = sharded_forward(
-        mesh, params, x,
-        forward_fn=lambda p, a: fused_forward(p, a, tile_h=16, tile_w=128,
-                                              dtype=jnp.float32),
-    )
+    y_sharded = sharded_forward(mesh, params, x)
     y_ref = forward(params, x)
+    assert y_sharded.shape == y_ref.shape == (1, 72, 142, 1)
     np.testing.assert_allclose(
-        np.asarray(y_sharded), np.asarray(y_ref), rtol=1e-4, atol=1e-4
+        np.asarray(y_sharded), np.asarray(y_ref), rtol=1e-5, atol=1e-5
     )
 
 
@@ -194,9 +190,9 @@ def test_upscale_image_spatial_rgb_and_luma(devices):
     """api.upscale_image_spatial end-to-end on the virtual mesh: both
     model families, including the bottom-pad (H % N != 0) path, must
     match the single-device api output."""
-    from cnn_sr_tpu.api import upscale_image, upscale_image_spatial
-    from cnn_sr_tpu.utils.config import parse_config
-    from cnn_sr_tpu.utils.params_io import random_parameters
+    from cnn_sr.api import upscale_image, upscale_image_spatial
+    from cnn_sr.utils.config import parse_config
+    from cnn_sr.utils.params_io import random_parameters
 
     rng = np.random.default_rng(21)
     # RGB model, 30 rows over 4 shards -> pad path

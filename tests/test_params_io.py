@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from cnn_sr_tpu.utils.config import LayerSpec
-from cnn_sr_tpu.utils.params_io import (
+from cnn_sr.utils.config import LayerSpec
+from cnn_sr.utils.params_io import (
     ParametersFileError,
     flat_to_hwio,
     hwio_to_flat,
@@ -97,7 +97,7 @@ def test_load_shape_mismatch(tmp_path):
 
 
 def test_random_parameters_shapes_and_distribution():
-    from cnn_sr_tpu.utils.config import ParametersDistribution
+    from cnn_sr.utils.config import ParametersDistribution
 
     dists = [ParametersDistribution(0.0, 0.1, 0.005, 0.0)] * 3
     params = random_parameters(SPECS, dists, seed=7)

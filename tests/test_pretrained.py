@@ -24,8 +24,8 @@ RGB_CFG = os.path.join(REPO, "configs", "waifu2x_7layer_rgb_pretrained.json")
 
 
 def test_pretrained_checkpoint_loads():
-    from cnn_sr_tpu.utils.config import read_config
-    from cnn_sr_tpu.utils.params_io import load_parameters_file
+    from cnn_sr.utils.config import read_config
+    from cnn_sr.utils.params_io import load_parameters_file
 
     cfg = read_config(CFG)
     assert cfg.zero_mean_target and not cfg.last_layer_relu_gate
@@ -46,10 +46,10 @@ def test_photo_checkpoint_loads():
     must not have destroyed the synthetic family)."""
     from generate_training_samples import _degrade_pil, synth_image
 
-    from cnn_sr_tpu.api import upscale_image
-    from cnn_sr_tpu.utils.config import read_config
-    from cnn_sr_tpu.utils.metrics import psnr_y
-    from cnn_sr_tpu.utils.params_io import load_parameters_file
+    from cnn_sr.api import upscale_image
+    from cnn_sr.utils.config import read_config
+    from cnn_sr.utils.metrics import psnr_y
+    from cnn_sr.utils.params_io import load_parameters_file
 
     cfg = read_config(PHOTO_CFG)
     assert cfg.zero_mean_target and not cfg.last_layer_relu_gate
@@ -71,10 +71,10 @@ def test_photo_checkpoint_loads():
 def test_pretrained_checkpoint_beats_bicubic():
     from generate_training_samples import _degrade_pil, synth_image
 
-    from cnn_sr_tpu.api import upscale_image
-    from cnn_sr_tpu.utils.config import read_config
-    from cnn_sr_tpu.utils.metrics import psnr_y
-    from cnn_sr_tpu.utils.params_io import load_parameters_file
+    from cnn_sr.api import upscale_image
+    from cnn_sr.utils.config import read_config
+    from cnn_sr.utils.metrics import psnr_y
+    from cnn_sr.utils.params_io import load_parameters_file
 
     cfg = read_config(CFG)
     params, _ = load_parameters_file(CKPT, cfg.layer_specs())
@@ -96,8 +96,8 @@ def test_pretrained_checkpoint_beats_bicubic():
 
 
 def test_rgb_pretrained_checkpoint_loads():
-    from cnn_sr_tpu.utils.config import read_config
-    from cnn_sr_tpu.utils.params_io import load_parameters_file
+    from cnn_sr.utils.config import read_config
+    from cnn_sr.utils.params_io import load_parameters_file
 
     cfg = read_config(RGB_CFG)
     assert cfg.channels == 3 and cfg.zero_mean_target
@@ -118,10 +118,10 @@ def test_rgb_pretrained_checkpoint_beats_bicubic():
     pretrained/README.md)."""
     from generate_training_samples import _degrade_pil, synth_image
 
-    from cnn_sr_tpu.api import upscale_image
-    from cnn_sr_tpu.utils.config import read_config
-    from cnn_sr_tpu.utils.metrics import psnr_y
-    from cnn_sr_tpu.utils.params_io import load_parameters_file
+    from cnn_sr.api import upscale_image
+    from cnn_sr.utils.config import read_config
+    from cnn_sr.utils.metrics import psnr_y
+    from cnn_sr.utils.params_io import load_parameters_file
 
     cfg = read_config(RGB_CFG)
     params, _ = load_parameters_file(RGB_CKPT, cfg.layer_specs())

@@ -32,8 +32,8 @@ from PIL import Image
 
 import jax.numpy as jnp
 
-from cnn_sr_tpu.models.srcnn import conv_layer
-from cnn_sr_tpu.ops.color import extract_luma, swap_luma
+from cnn_sr.models.srcnn import conv_layer
+from cnn_sr.ops.color import extract_luma, swap_luma
 
 REFDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "refdata")
 

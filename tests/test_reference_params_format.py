@@ -11,8 +11,8 @@ significant digits, scientific below 1e-4) and NO trailing newline.
 
 import numpy as np
 
-from cnn_sr_tpu.utils.config import LayerSpec
-from cnn_sr_tpu.utils.params_io import (
+from cnn_sr.utils.config import LayerSpec
+from cnn_sr.utils.params_io import (
     load_parameters_file, save_parameters_file)
 
 

@@ -7,7 +7,7 @@ from PIL import Image
 
 import jax.numpy as jnp
 
-from cnn_sr_tpu.ops.resize import degrade, resize_plane, upscale_rgba
+from cnn_sr.ops.resize import degrade, resize_plane, upscale_rgba
 
 
 def test_upscale_shapes_and_range():

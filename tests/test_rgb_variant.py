@@ -13,8 +13,8 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
-from cnn_sr_tpu.cli import main
-from cnn_sr_tpu.utils.config import read_config
+from cnn_sr.cli import main
+from cnn_sr.utils.config import read_config
 
 RGB_CFG = {
     "channels": 3,
@@ -95,8 +95,8 @@ def test_rgb_train_and_forward_cli(rgb_cfg_path, tmp_path):
 
 
 def test_rgb_training_learns(rgb_cfg_path, tmp_path):
-    from cnn_sr_tpu.training.samples import find_training_samples, load_sample_set
-    from cnn_sr_tpu.training.trainer import init_train_state, train_loop
+    from cnn_sr.training.samples import find_training_samples, load_sample_set
+    from cnn_sr.training.trainer import init_train_state, train_loop
 
     samples_dir = _make_samples(tmp_path, n=6, size=16)
     cfg = read_config(rgb_cfg_path)
@@ -117,7 +117,7 @@ def test_rgb_training_learns(rgb_cfg_path, tmp_path):
 def test_big_shape_smoke():
     """1024x1024, 32->16 filters: 'didn't crash? then ok'
     (BackpropagationTest.cpp:155-168)."""
-    from cnn_sr_tpu.models import loss_sum
+    from cnn_sr.models import loss_sum
 
     rng = np.random.default_rng(0)
     params = [

@@ -160,9 +160,9 @@ def test_serve_batching_queue(cfg_path):
 def test_serve_batching_queue_rgb(tmp_path):
     """RGB models batch too (VERDICT r1 missing #3): one fused dispatch
     per same-shape group, outputs identical to the single-image path."""
-    from cnn_sr_tpu.api import upscale_image
-    from cnn_sr_tpu.utils.config import parse_config
-    from cnn_sr_tpu.utils.params_io import random_parameters
+    from cnn_sr.api import upscale_image
+    from cnn_sr.utils.config import parse_config
+    from cnn_sr.utils.params_io import random_parameters
 
     rgb_cfg = dict(CFG, channels=3)
     p = tmp_path / "rgb.json"

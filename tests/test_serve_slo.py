@@ -1,4 +1,4 @@
-"""Latency-SLO policy tests for the serving front-end (VERDICT r4 #5).
+"""Latency-SLO policy tests for the serving front-end.
 
 The published concurrent p99 showed that during a backend stall every
 queued client blocked for minutes and then still got served; the SLO

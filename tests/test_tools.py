@@ -111,8 +111,8 @@ def test_generate_training_samples_empty_dir(tmp_path):
 def test_weights_visualize(tmp_path):
     import weights_visualize as wv
 
-    from cnn_sr_tpu.utils.config import parse_config
-    from cnn_sr_tpu.utils.params_io import random_parameters, save_parameters_file
+    from cnn_sr.utils.config import parse_config
+    from cnn_sr.utils.params_io import random_parameters, save_parameters_file
 
     cfg = parse_config(CFG)
     params = random_parameters(cfg.layer_specs(), cfg.distributions, seed=0)
@@ -176,18 +176,3 @@ def test_schedule_training_convert_and_dry(tmp_path, monkeypatch):
     assert calls[0][-4:] == ["--train-precision", "bf16",
                              "--data-parallel", "4"]
 
-
-def test_patchbuild_probe_smoke(monkeypatch, capsys):
-    # variants must agree within 1 quantization LSB and print one
-    # timing line each (tiny shapes; timing values are meaningless here)
-    import patchbuild_probe as pb
-
-    monkeypatch.setattr(
-        sys, "argv",
-        ["patchbuild_probe.py", "--hw", "48x64", "--f", "9",
-         "--dpack", "5", "--iters", "1"],
-    )
-    pb.main()
-    lines = [l for l in capsys.readouterr().out.splitlines() if l.strip()]
-    assert len(lines) == 7
-    assert lines[0].startswith("int8")

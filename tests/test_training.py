@@ -9,19 +9,19 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from cnn_sr_tpu.training.samples import (
+from cnn_sr.training.samples import (
     SampleSet,
     divide_samples,
     find_training_samples,
     load_sample_set,
 )
-from cnn_sr_tpu.training.trainer import (
+from cnn_sr.training.trainer import (
     TrainState,
     init_train_state,
     make_train_step,
     train_loop,
 )
-from cnn_sr_tpu.utils.config import parse_config
+from cnn_sr.utils.config import parse_config
 
 CFG_RAW = {
     "n1": 8, "n2": 4, "f1": 3, "f2": 1, "f3": 3,
@@ -152,7 +152,7 @@ def test_grad_chunking_matches_unchunked():
 
 
 def test_init_train_state_loads_parameters_file(tmp_path):
-    from cnn_sr_tpu.utils.params_io import save_parameters_file
+    from cnn_sr.utils.params_io import save_parameters_file
 
     cfg = parse_config(CFG_RAW)
     state = init_train_state(cfg, seed=5)
@@ -171,7 +171,7 @@ def test_init_train_state_loads_parameters_file(tmp_path):
 def test_zero_validation_percent_both_dispatch_paths():
     """Empty validation set (the reference warns and skips — Main_cl.cpp:118-120)
     must work in per-epoch and scanned dispatch."""
-    from cnn_sr_tpu.training.samples import SampleSet
+    from cnn_sr.training.samples import SampleSet
 
     rng = np.random.default_rng(0)
     samples = SampleSet(
@@ -195,7 +195,7 @@ def test_find_training_samples_rejects_ambiguous_extensions(tmp_path):
     import pytest
     from PIL import Image
 
-    from cnn_sr_tpu.training.samples import find_training_samples
+    from cnn_sr.training.samples import find_training_samples
 
     d = tmp_path / "samples"
     d.mkdir()
@@ -211,7 +211,7 @@ def test_step_cache_is_bounded():
     """VERDICT r1 weak #4: churning hyperparameter/chunking combinations
     (as a long-lived serving or scheduling process would) must not grow
     the compiled-step cache without limit — LRU eviction caps it."""
-    from cnn_sr_tpu.training import trainer
+    from cnn_sr.training import trainer
 
     cfg = parse_config(CFG_RAW)
     for chunks in range(1, trainer._STEP_CACHE.maxsize + 20):
@@ -219,7 +219,7 @@ def test_step_cache_is_bounded():
     assert len(trainer._STEP_CACHE) <= trainer._STEP_CACHE.maxsize
 
     # LRU semantics at the unit level
-    from cnn_sr_tpu.utils.cache import LRUCache
+    from cnn_sr.utils.cache import LRUCache
 
     c = LRUCache(maxsize=2)
     c["a"], c["b"] = 1, 2

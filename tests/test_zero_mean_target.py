@@ -7,10 +7,10 @@ subtraction (Main_cl.cpp:141; targets stay absolute there).
 import numpy as np
 from PIL import Image
 
-from cnn_sr_tpu.api import upscale_image
-from cnn_sr_tpu.training.samples import load_sample_set
-from cnn_sr_tpu.training.trainer import init_train_state
-from cnn_sr_tpu.utils.config import parse_config
+from cnn_sr.api import upscale_image
+from cnn_sr.training.samples import load_sample_set
+from cnn_sr.training.trainer import init_train_state
+from cnn_sr.utils.config import parse_config
 
 CFG = {
     "n1": 4, "n2": 2, "f1": 3, "f2": 1, "f3": 3,
@@ -46,8 +46,8 @@ def test_relu_gate_off_gives_plain_mse_gradients():
     import jax
     import jax.numpy as jnp
 
-    from cnn_sr_tpu.models import forward, loss_sum
-    from cnn_sr_tpu.models.srcnn import center_crop
+    from cnn_sr.models import forward, loss_sum
+    from cnn_sr.models.srcnn import center_crop
 
     cfg = parse_config(CFG)
     params = init_train_state(cfg, seed=3).params
@@ -148,7 +148,7 @@ def test_bucketed_path_matches_exact_with_flag():
 def test_direct_config_construction_couples_gate():
     # the zero_mean_target -> gate-off default must hold for direct
     # Config(...) construction too, not just parse_config
-    from cnn_sr_tpu.utils.config import Config
+    from cnn_sr.utils.config import Config
 
     base = parse_config(CFG)
     c = Config(

@@ -9,7 +9,7 @@ ground truth — for bicubic (the degraded input itself) vs the network
 output, per image and averaged.
 
 Usage:
-    python tools/evaluate.py -c cfg.json -i samples_dir [--pallas]
+    python tools/evaluate.py -c cfg.json -i samples_dir
     python tools/evaluate.py -c cfg.json -i photos_dir --degrade 2
 """
 
@@ -23,12 +23,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-_platform = os.environ.get("CNN_SR_PLATFORM")
-if _platform:
-    import jax
-
-    jax.config.update("jax_platforms", _platform)
-
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="PSNR(Y) evaluation over an image set.")
@@ -38,25 +32,21 @@ def main(argv=None) -> int:
                    "when --degrade is given")
     p.add_argument("--degrade", "-d", type=float, default=None,
                    help="degrade plain images by this factor on the fly")
-    p.add_argument("--pallas-precision", choices=("bf16", "f32"),
-                   default="bf16",
-                   help="fused-kernel precision (f32 recommended for deep "
-                   "stacks — they compound bf16 rounding)")
-    p.add_argument("--pallas", action="store_true",
-                   help="use the fused Pallas inference path")
     p.add_argument("--seed", type=int, default=None)
     args = p.parse_args(argv)
 
     import jax.numpy as jnp
 
-    from cnn_sr_tpu.api import upscale_image
-    from cnn_sr_tpu.ops.image import load_image
-    from cnn_sr_tpu.ops.resize import degrade
-    from cnn_sr_tpu.training.samples import find_training_samples
-    from cnn_sr_tpu.training.trainer import init_train_state
-    from cnn_sr_tpu.utils.config import read_config
-    from cnn_sr_tpu.utils.metrics import psnr_y
+    from cnn_sr.api import upscale_image
+    from cnn_sr.utils.compile_cache import configure_compile_cache
+    from cnn_sr.ops.image import load_image
+    from cnn_sr.ops.resize import degrade
+    from cnn_sr.training.samples import find_training_samples
+    from cnn_sr.training.trainer import init_train_state
+    from cnn_sr.utils.config import read_config
+    from cnn_sr.utils.metrics import psnr_y
 
+    configure_compile_cache()
     cfg = read_config(args.config)
     state = init_train_state(cfg, seed=args.seed)
 
@@ -92,8 +82,7 @@ def main(argv=None) -> int:
     bicubic_scores, net_scores = [], []
     print(f"{'image':<28} {'bicubic':>9} {'network':>9} {'delta':>8}")
     for name, gt, degraded in pairs:
-        out = upscale_image(cfg, state.params, degraded, use_pallas=args.pallas,
-                            pallas_precision=args.pallas_precision)
+        out = upscale_image(cfg, state.params, degraded)
         # compare only the center the net actually computed
         gt3 = gt[..., :3]
         c = (slice(pad, gt3.shape[0] - pad), slice(pad, gt3.shape[1] - pad))

@@ -48,7 +48,7 @@ def _degrade_jax(large, out_size, degrade_factor):
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax.numpy as jnp
 
-    from cnn_sr_tpu.ops.resize import degrade
+    from cnn_sr.ops.resize import degrade
 
     arr = jnp.asarray(np.asarray(large), jnp.float32)
     soft = degrade(arr, degrade_factor, method="lanczos")

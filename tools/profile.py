@@ -4,7 +4,7 @@
 Equivalent of the reference's profile.py:9-53: run the CLI in
 ``train dry [profile]`` mode as a subprocess, measure wall clock and
 s/epoch, and in stage mode re-print the CLI's ranked stage-profile
-breakdown (the TPU-fused-op analog of the per-kernel CL event times).
+breakdown (the fused-XLA-op analog of the per-kernel CL event times).
 
 Usage:
     python tools/profile.py -c cfg.json -i samples -e 100 [stage]

@@ -160,7 +160,7 @@ cl_int clGetPlatformInfo(cl_platform_id, cl_platform_info name, size_t sz,
     case CL_PLATFORM_NAME:
       return write_str("cnnshim (CPU oracle)", sz, p, szret);
     case CL_PLATFORM_VENDOR:
-      return write_str("cnn_sr_tpu reforacle", sz, p, szret);
+      return write_str("cnn_sr reforacle", sz, p, szret);
     case CL_PLATFORM_VERSION:
       return write_str("OpenCL 1.1 cnnshim", sz, p, szret);
     default:

@@ -52,7 +52,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, REPO)
 
-os.environ.setdefault("CNN_SR_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 FAILS = []
 
@@ -171,11 +171,11 @@ def main():
 
     from PIL import Image
 
-    from cnn_sr_tpu.api import upscale_image
-    from cnn_sr_tpu.training.samples import find_training_samples, load_sample_set
-    from cnn_sr_tpu.training.trainer import init_train_state, train_loop
-    from cnn_sr_tpu.utils.config import parse_config
-    from cnn_sr_tpu.utils.params_io import (
+    from cnn_sr.api import upscale_image
+    from cnn_sr.training.samples import find_training_samples, load_sample_set
+    from cnn_sr.training.trainer import init_train_state, train_loop
+    from cnn_sr.utils.config import parse_config
+    from cnn_sr.utils.params_io import (
         load_parameters_file,
         random_parameters,
         save_parameters_file,

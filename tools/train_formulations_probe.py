@@ -1,10 +1,7 @@
 #!/usr/bin/env python
-"""Training grad-step formulation A/B (VERDICT r3 #6).
+"""Training grad-step formulation A/B.
 
-The trainer's XLA-conv choice was measured against im2col twice in
-round 1 (2026-08-17, both wins for XLA conv) — BEFORE the raw-plane
-transpose, sep dots, and the parity domain existed. This re-measures
-the grad step with current code at both training precisions:
+Times the grad step of three formulations at both training precisions:
 
 * ``conv``   — the incumbent: ``jax.grad(models.loss_sum)`` through
   ``lax.conv_general_dilated`` (HIGHEST for parity, bf16 mixed for
@@ -17,15 +14,13 @@ the grad step with current code at both training precisions:
 All three share the exact loss structure (0.5·Σd², ReLU' gate,
 center crop) so gradients agree to precision; the probe asserts
 cross-formulation gradient agreement before timing. Timing is the
-two-length chained-scan marginal (docs/BENCHMARKS.md methodology):
-each scan iteration applies a tiny dependent update so pipelined
-dispatch can't hide compute.
+two-length chained-scan marginal: each scan iteration applies a tiny
+dependent update so pipelined dispatch can't hide compute.
 
-Workloads: the reference profile.py 36×128² set on 9-1-5 and 9-5-5
-(BASELINE rows 3/8). Run serialized on the chip:
+Workloads: the reference profile.py 36×128² set on 9-1-5 and 9-5-5.
+Run it alone on the device:
 
-    JAX_COMPILATION_CACHE_DIR=/tmp/jaxcache \
-        python tools/train_formulations_probe.py
+    python tools/train_formulations_probe.py
 """
 
 from __future__ import annotations
@@ -54,8 +49,8 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
     from jax import lax
 
-    from cnn_sr_tpu.models import forward
-    from cnn_sr_tpu.models.srcnn import center_crop, relu_backprop_gate
+    from cnn_sr.models import forward
+    from cnn_sr.models.srcnn import center_crop, relu_backprop_gate
 
     rng = np.random.default_rng(0)
 

@@ -22,8 +22,8 @@ from PIL import Image
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cnn_sr_tpu.utils.config import read_config
-from cnn_sr_tpu.utils.params_io import load_parameters_file
+from cnn_sr.utils.config import read_config
+from cnn_sr.utils.params_io import load_parameters_file
 
 CELL_PADDING = 2
 
